@@ -15,8 +15,12 @@ fatal on failure (no CPU fallback, nothing caught and passed over):
              sum HW = 87296) from ``init_detr(seed)`` answers requests of 2
              pyramids from the detection source; shapes, finiteness, 12
              kernel launches per request, and agreement with backend="ref".
-4. times   — CUDA-event kernel times beside their bound, the plain version,
-             the grid_sample baseline; request latency; peak memory.
+             The operands of the path's first encoder and decoder MSDA
+             calls are captured and the kernel is checked on them too.
+4. times   — CUDA-event kernel times beside their bound, the plain version
+             and the grid_sample baseline, on random and on the path's own
+             operands; request latency; peak memory; a torch.profiler
+             breakdown of one request by kernel, with the device idle share.
 
 Prints a kernel JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -123,6 +127,65 @@ def work_bound(value, loc, attn, levels):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def capture_msda_operands(run):
+    """(value, loc, attn) of every MSDA kernel call ``run()`` makes, in order.
+
+    Wraps ``ops.msda_fused``, which the cuda backend's executor looks up at
+    each call, for the duration of ``run()`` only."""
+    from repro_torch.kernels import ops
+
+    calls, real = [], ops.msda_fused
+
+    def record(value, loc, attn, spatial_shapes):
+        calls.append((value.contiguous(), loc.contiguous(), attn.contiguous()))
+        return real(value, loc, attn, spatial_shapes)
+
+    ops.msda_fused = record
+    try:
+        run()
+    finally:
+        ops.msda_fused = real
+    return calls
+
+
+def profile_request(run, card: str, top: int = 8) -> None:
+    """Device time of one request by kernel (torch.profiler), and the share
+    of the request's wall time the device was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # Device activity only.  The device timeline also carries one annotation
+    # per CPU op (aten::mm, FusedForward, ...) spanning the kernels that op
+    # launched; those share the op's name and would count the time twice.
+    events = prof.events()
+    cpu_names = {e.name for e in events if not str(e.device_type).endswith("CUDA")}
+    kernels = [e for e in events
+               if str(e.device_type).endswith("CUDA") and e.name not in cpu_names]
+    busy_us, span = 0.0, None
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if span is None or start > span[1]:
+            busy_us += 0.0 if span is None else span[1] - span[0]
+            span = [start, end]
+        else:
+            span[1] = max(span[1], end)
+    busy_ms = (busy_us + (0.0 if span is None else span[1] - span[0])) / 1e3
+    log(f"[profile] {card} | one request under torch.profiler: wall {wall_ms:.2f} ms, "
+        f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%, idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%), {len(kernels)} device activities")
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"[profile]   {t:9.3f} ms {100 * t / busy_ms:5.1f}%  x{n:<4d} {name[:90]}")
+
+
 def main() -> None:
     import torch
 
@@ -137,7 +200,7 @@ def main() -> None:
     from repro_torch.configs.base import get_config
     from repro_torch.core import deformable_transformer as dt
     from repro_torch.data.pipeline import DataConfig, detection_batch
-    from repro_torch.kernels import build, msda_fwd, ref
+    from repro_torch.kernels import build, msda_fwd, ops, ref
 
     # -- 1. build ---------------------------------------------------------
     card = card_line()
@@ -157,26 +220,36 @@ def main() -> None:
     D = cfg.d_model // H
 
     # -- 2. kernel vs plain version on the card --------------------------
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    geoms = {"encoder_b1": (1, S), "encoder_b2": (2, S), "decoder_b2": (2, dt.NUM_QUERIES)}
     operands, errs = {}, {}
-    for name, (B, Q) in geoms.items():
-        ops_ = msda_inputs(gen, B, Q, S, H, D, L, P)
+
+    def check_kernel(name, ops_):
         got = msda_fwd.msda_fwd_fused(*ops_, levels)
         torch.cuda.synchronize()
         want = msda_fwd.msda_fwd_fused_plain(*ops_, levels)
         oracle = ref.msda_ref(ops_[0], levels, ops_[1], ops_[2])
         err = float((got - want).abs().max())
         err_ref = float((got - oracle).abs().max())
+        B, Q = ops_[1].shape[:2]
         log(f"[kernels] msda_fwd_fused {name} B={B} Q={Q}: max|kernel-plain| = {err:.3e}, "
             f"max|kernel-ref| = {err_ref:.3e} (FWD_TOL {FWD_TOL})")
         if not (err <= FWD_TOL and err_ref <= FWD_TOL):
             fail(f"msda_fwd_fused disagrees at {name}: {err} / {err_ref} > {FWD_TOL}")
         operands[name], errs[name] = ops_, err
-        del got, want, oracle
-    max_err = max(errs.values())
-    log(f"[kernels] ported: msda_fwd_fused (replaces {KERNEL_REPLACES}) — PASS, "
-        f"max_abs_err {max_err:.3e} <= {FWD_TOL}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    geoms = {"random_encoder_b1": (1, S), "random_encoder_b2": (2, S),
+             "random_decoder_b2": (2, dt.NUM_QUERIES)}
+    for name, (B, Q) in geoms.items():
+        check_kernel(name, msda_inputs(gen, B, Q, S, H, D, L, P))
+    log(f"[kernels] ported: msda_fwd_fused (replaces {KERNEL_REPLACES}) — PASS at random "
+        f"operands, max_abs_err {max(errs.values()):.3e} <= {FWD_TOL}")
+    # no backward kernel yet: a gradient through the kernel must raise
+    small = [t.requires_grad_() for t in msda_inputs(gen, 1, 8, S, H, D, L, P)]
+    try:
+        ops.msda_fused(*small, levels).sum().backward()
+        fail("backward through the CUDA kernel returned instead of raising")
+    except NotImplementedError as err:
+        log(f"[kernels] backward on the card raises as it must: {err}")
 
     # -- 3. the slice -----------------------------------------------------
     model = dt.init_detr(cfg, seed=SEED, device="cuda")
@@ -231,6 +304,16 @@ def main() -> None:
     log(f"[slice] outputs finite, shapes (2,300,{cfg.vocab_size}) + (2,300,4); "
         f"max |cuda - ref| over memory/logits/boxes = {worst:.3e} (tol {SLICE_TOL})")
 
+    # the main path's own operands (samples near their reference points,
+    # unlike uniform random loc): first encoder and first decoder call
+    calls = capture_msda_operands(lambda: answer(cfg, batches[0]["pyramid"]))
+    if len(calls) != 12:
+        fail(f"expected 12 MSDA calls per request, captured {len(calls)}")
+    check_kernel("path_encoder_b2", calls[0])
+    check_kernel("path_decoder_b2", calls[6])
+    del calls
+    max_err = max(errs.values())
+
     # -- 4. times -----------------------------------------------------------
     timing = {}
     for name, ops_ in operands.items():
@@ -247,13 +330,12 @@ def main() -> None:
             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {bound['bytes']} B, "
             f"{bound['flops']} FLOP), plain {p_ms:.3f} ms, grid_sample baseline {g_ms:.3f} ms")
     steady = sorted(latencies[1:])[len(latencies[1:]) // 2]
-    kernel_share = 6 * (timing["encoder_b2"]["ms"] + timing["decoder_b2"]["ms"]) / steady
     log(f"[times] {card} | request latency (B=2, host clock to synchronize) ms: "
         + ", ".join(f"{x:.2f}" for x in latencies)
-        + f" (first is cold; median of the rest {steady:.2f}); 12 kernel launches "
-        f"take {100 * kernel_share:.1f}% of it; peak memory {peak_gib:.2f} GiB")
+        + f" (first is cold; median of the rest {steady:.2f}); peak memory {peak_gib:.2f} GiB")
+    profile_request(lambda: answer(cfg, batches[1]["pyramid"]), card)
 
-    main_geom = timing["encoder_b2"]
+    main_geom = timing["path_encoder_b2"]
     line = {"kernels": [{
         "name": "msda_fwd_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,

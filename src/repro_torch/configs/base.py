@@ -8,7 +8,7 @@ config built on either side describes the same model.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -122,11 +122,6 @@ def get_config(name: str) -> ModelConfig:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
-
-
-def list_configs() -> Sequence[str]:
-    _ensure_loaded()
-    return sorted(_REGISTRY)
 
 
 _LOADED = False

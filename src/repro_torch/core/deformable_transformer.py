@@ -70,15 +70,13 @@ def init_detr(cfg, seed: int = 0, device="cuda") -> DeformableDETR:
     return DeformableDETR(cfg, gen).to(dev)
 
 
-def msda_plans(cfg, *, dtype="float32", train: bool = False, backend=None):
+def msda_plans(cfg, *, dtype="float32"):
     """The model's two MsdaPlans (encoder Q = sum HW, decoder Q = 300)."""
     mc = cfg.msda
     sp = sum(h * w for h, w in mc.levels)
     D = cfg.d_model // mc.num_heads
-    enc = msda_mod.attention_plan(mc, num_queries=sp, head_dim=D, dtype=dtype,
-                                  train=train, backend=backend)
-    dec = msda_mod.attention_plan(mc, num_queries=NUM_QUERIES, head_dim=D,
-                                  dtype=dtype, train=train, backend=backend)
+    enc = msda_mod.attention_plan(mc, num_queries=sp, head_dim=D, dtype=dtype)
+    dec = msda_mod.attention_plan(mc, num_queries=NUM_QUERIES, head_dim=D, dtype=dtype)
     return {"encoder": enc, "decoder": dec}
 
 
@@ -88,8 +86,7 @@ def _level_emb_expanded(params: DeformableDETR, cfg, dtype) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
-def encode_pyramid(params: DeformableDETR, cfg, pyramid: torch.Tensor, *,
-                   train: bool = False) -> torch.Tensor:
+def encode_pyramid(params: DeformableDETR, cfg, pyramid: torch.Tensor) -> torch.Tensor:
     """pyramid: (B, S, d) flattened multi-scale features -> memory (B, S, d)."""
     mc = cfg.msda
     x = pyramid + _level_emb_expanded(params, cfg, pyramid.dtype)[None]
@@ -97,14 +94,13 @@ def encode_pyramid(params: DeformableDETR, cfg, pyramid: torch.Tensor, *,
     refs = refs.expand(x.shape[0], *refs.shape[1:])
     for lp in params.enc_layers:
         h = layers.apply_norm(lp.norm1, x, cfg.norm_eps)
-        x = x + msda_mod.msda_attention(lp.msda, mc, h, h, refs, train=train)
+        x = x + msda_mod.msda_attention(lp.msda, mc, h, h, refs)
         h2 = layers.apply_norm(lp.norm2, x, cfg.norm_eps)
         x = x + layers.apply_mlp(lp.mlp, cfg, h2)
     return x
 
 
-def decode_queries(params: DeformableDETR, cfg, memory: torch.Tensor, *,
-                   train: bool = False):
+def decode_queries(params: DeformableDETR, cfg, memory: torch.Tensor):
     """300 object queries -> (class_logits (B,300,C), boxes (B,300,4))."""
     mc = cfg.msda
     B = memory.shape[0]
@@ -117,7 +113,7 @@ def decode_queries(params: DeformableDETR, cfg, memory: torch.Tensor, *,
         h = layers.apply_norm(lp.norm1, q, cfg.norm_eps)
         q = q + attention.attention_fwd(lp.self_attn, cfg, h, causal=False, rope=False)
         h2 = layers.apply_norm(lp.norm2, q, cfg.norm_eps)
-        q = q + msda_mod.msda_attention(lp.msda, mc, h2, memory, refs, train=train)
+        q = q + msda_mod.msda_attention(lp.msda, mc, h2, memory, refs)
         h3 = layers.apply_norm(lp.norm3, q, cfg.norm_eps)
         q = q + layers.apply_mlp(lp.mlp, cfg, h3)
     q = layers.apply_norm(params.final_norm, q, cfg.norm_eps)

@@ -63,13 +63,10 @@ def init_msda_attention(gen: Optional[torch.Generator], d_model: int, msda_cfg) 
         b_weights=torch.zeros(H * L * Pn))
 
 
-def attention_plan(msda_cfg, *, num_queries: int, head_dim: int, dtype,
-                   train: bool = False, backend: Optional[str] = None,
-                   dtype_policy: Optional[str] = None,
-                   tune: Optional[str] = None) -> plan_mod.MsdaPlan:
-    """The module's :class:`MsdaPlan` for one static geometry (cached)."""
-    policy = dtype_policy or msda_cfg.dtype_policy
-    slab_dtype, accum_dtype = plan_mod.resolve_dtype_policy(policy)
+def attention_plan(msda_cfg, *, num_queries: int, head_dim: int,
+                   dtype) -> plan_mod.MsdaPlan:
+    """The module's inference :class:`MsdaPlan` for one static geometry (cached)."""
+    slab_dtype, accum_dtype = plan_mod.resolve_dtype_policy(msda_cfg.dtype_policy)
     spec = plan_mod.MsdaSpec(
         spatial_shapes=msda_cfg.levels,
         num_heads=msda_cfg.num_heads,
@@ -77,7 +74,6 @@ def attention_plan(msda_cfg, *, num_queries: int, head_dim: int, dtype,
         num_points=msda_cfg.num_points,
         num_queries=num_queries,
         dtype=plan_mod.dtype_name(dtype),
-        train=train,
         vmem_budget=msda_cfg.vmem_budget,
         slab_dtype=slab_dtype,
         accum_dtype=accum_dtype,
@@ -86,13 +82,11 @@ def attention_plan(msda_cfg, *, num_queries: int, head_dim: int, dtype,
         sparsity_k=msda_cfg.sparsity_k,
         query_order=msda_cfg.query_order,
     )
-    return plan_mod.msda_plan(spec, backend=backend or msda_cfg.backend,
-                              tune=tune or msda_cfg.tune)
+    return plan_mod.msda_plan(spec, backend=msda_cfg.backend, tune=msda_cfg.tune)
 
 
 def msda_attention(p: MSDAttention, msda_cfg, query: torch.Tensor,
                    value_feats: torch.Tensor, reference_points: torch.Tensor, *,
-                   train: bool = False, backend: Optional[str] = None,
                    valid_ratios: Optional[torch.Tensor] = None) -> torch.Tensor:
     """query (B,Q,d), value_feats (B,S,d), reference_points (B,Q,2) in [0,1];
     ``valid_ratios`` (B,L,2) x,y fractions of each padded level in use."""
@@ -119,7 +113,6 @@ def msda_attention(p: MSDAttention, msda_cfg, query: torch.Tensor,
     aw = torch.softmax(aw.reshape(B, Q, H, L * Pn).float(), dim=-1)
     aw = aw.reshape(B, Q, H, L, Pn)
 
-    plan = attention_plan(msda_cfg, num_queries=Q, head_dim=D, dtype=dt,
-                          train=train, backend=backend)
+    plan = attention_plan(msda_cfg, num_queries=Q, head_dim=D, dtype=dt)
     out = plan(value.to(dt), loc, aw.to(dt))
     return out.to(dt) @ p.out_proj.to(dt)

@@ -26,14 +26,18 @@
 // at most 300*8*20*4 corner rows of 128 B (<= 24.6 MB of value, fewer when
 // corners repeat or fall outside), so it is launch and latency bound.
 //
-// Design: one warp per (b, q, h); the 32 lanes are 32 consecutive channels,
-// so one corner is one coalesced 128-byte read.  Warps are numbered with h
-// fastest, then q: the warps resident together on the card work on
-// neighbouring queries of one image, whose corners overlap, so the ~7.2 GB
-// of 128-byte corner reads an encoder call issues at B = 1 mostly hit the
-// 50 MB L2 instead of HBM.  Each lane recomputes the corner arithmetic of
-// a point (the loads are warp-wide broadcasts), which keeps the branch on
-// corner validity uniform across the warp.  All offsets are 64-bit.
+// Design: one warp per (b, q, h), split into 4 groups of 8 lanes.  Group g
+// samples points p = g, g+4, ... of each level; each of its 8 lanes loads
+// 4 consecutive channels of a corner as one float4, so a group reads a
+// 32-channel corner as one 128-byte request and the warp has 4 points in
+// flight per step.  That divides the corner arithmetic and the load
+// instructions per warp by 4 against one point per warp step.  The
+// groups' per-level partials are summed with two xor-shuffles, then folded
+// into the output in level order.  Warps are numbered with h fastest, then
+// q: the warps resident together on the card work on neighbouring queries
+// of one image, whose corners overlap, so the ~7.2 GB of 128-byte corner
+// reads an encoder call issues at B = 1 mostly hit the 50 MB L2 instead of
+// HBM.  All offsets are 64-bit.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -42,12 +46,28 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kGroups = 4;      // point groups per warp
+constexpr int kGroupLanes = 8;  // lanes per group: 8 x float4 = 32 channels
 
 struct LevelTable {
   int h[kMaxLevels];
   int w[kMaxLevels];
   long long start[kMaxLevels];  // first pixel of level l along S
 };
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& v) {
+  acc.x += v.x * w;
+  acc.y += v.y * w;
+  acc.z += v.z * w;
+  acc.w += v.w * w;
+}
+
+__device__ __forceinline__ float4 shfl_xor4(const float4& v, int mask) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, mask),
+                     __shfl_xor_sync(0xffffffffu, v.y, mask),
+                     __shfl_xor_sync(0xffffffffu, v.z, mask),
+                     __shfl_xor_sync(0xffffffffu, v.w, mask));
+}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_fwd_fused_kernel(const float* __restrict__ value,
@@ -58,8 +78,11 @@ msda_fwd_fused_kernel(const float* __restrict__ value,
                       int D, int L, int P, LevelTable lv) {
   const long long warp =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  // whole warps exit together, so the full-mask shuffles below are safe
   if (warp >= n_warps) return;
   const int lane = threadIdx.x & 31;
+  const int g = lane / kGroupLanes;
+  const int j = lane % kGroupLanes;
   // warp = (b * Q + q) * H + h
   const int h = (int)(warp % H);
   const long long b = warp / H / Q;
@@ -70,20 +93,21 @@ msda_fwd_fused_kernel(const float* __restrict__ value,
   const float* value_bh = value + b * S * HD + (long long)h * D;
   float* out_w = out + warp * D;
 
-  for (int c = lane; c < D; c += 32) {
-    float acc = 0.f;
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    const int c = c0 + 4 * j;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
     for (int l = 0; l < L; ++l) {
       const int Hl = lv.h[l];
       const int Wl = lv.w[l];
       const float* vl = value_bh + lv.start[l] * HD + c;
-      float part = 0.f;
-      for (int p = 0; p < P; ++p) {
+      float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int p = g; p < P; p += kGroups) {
         const long long i = (long long)l * P + p;
-        const float x = __ldg(loc_w + 2 * i);
-        const float y = __ldg(loc_w + 2 * i + 1);
+        const float2 xy = __ldg(reinterpret_cast<const float2*>(loc_w) + i);
         const float a = __ldg(attn_w + i);
-        const float px = x * (float)Wl - 0.5f;
-        const float py = y * (float)Hl - 0.5f;
+        const float px = xy.x * (float)Wl - 0.5f;
+        const float py = xy.y * (float)Hl - 0.5f;
         const float x0f = floorf(px);
         const float y0f = floorf(py);
         const float lx = px - x0f;
@@ -97,22 +121,32 @@ msda_fwd_fused_kernel(const float* __restrict__ value,
         const bool vx1 = x0 + 1 >= 0 && x0 + 1 < Wl;
         const bool vy0 = y0 >= 0 && y0 < Hl;
         const bool vy1 = y0 + 1 >= 0 && y0 + 1 < Hl;
-        float s = 0.f;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
         if (vy0) {
           const float* row = vl + (long long)y0 * Wl * HD;
-          if (vx0) s += __ldg(row + (long long)x0 * HD) * ((1.f - lx) * (1.f - ly));
-          if (vx1) s += __ldg(row + (long long)(x0 + 1) * HD) * (lx * (1.f - ly));
+          if (vx0) fma4(s, (1.f - lx) * (1.f - ly),
+                        __ldg(reinterpret_cast<const float4*>(row + (long long)x0 * HD)));
+          if (vx1) fma4(s, lx * (1.f - ly),
+                        __ldg(reinterpret_cast<const float4*>(row + (long long)(x0 + 1) * HD)));
         }
         if (vy1) {
           const float* row = vl + (long long)(y0 + 1) * Wl * HD;
-          if (vx0) s += __ldg(row + (long long)x0 * HD) * ((1.f - lx) * ly);
-          if (vx1) s += __ldg(row + (long long)(x0 + 1) * HD) * (lx * ly);
+          if (vx0) fma4(s, (1.f - lx) * ly,
+                        __ldg(reinterpret_cast<const float4*>(row + (long long)x0 * HD)));
+          if (vx1) fma4(s, lx * ly,
+                        __ldg(reinterpret_cast<const float4*>(row + (long long)(x0 + 1) * HD)));
         }
-        part += s * a;
+        fma4(part, a, s);
       }
-      acc += part;  // ordered level fold of rounded fp32 partials
+      // sum the 4 groups' partials (every lane ends with the same sum)
+      const float4 o1 = shfl_xor4(part, kGroupLanes);
+      part = make_float4(part.x + o1.x, part.y + o1.y, part.z + o1.z, part.w + o1.w);
+      const float4 o2 = shfl_xor4(part, 2 * kGroupLanes);
+      part = make_float4(part.x + o2.x, part.y + o2.y, part.z + o2.z, part.w + o2.w);
+      // ordered level fold of rounded fp32 partials
+      acc = make_float4(acc.x + part.x, acc.y + part.y, acc.z + part.z, acc.w + part.w);
     }
-    out_w[c] = acc;
+    if (g == 0) *reinterpret_cast<float4*>(out_w + c) = acc;
   }
 }
 

@@ -1,7 +1,7 @@
-"""Kernel driver glue for the fused forward tier (port of the fused part
+"""Glue around the fused forward kernel (port of the fused part
 of ``repro.kernels.ops``).
 
-The JAX driver transposes to head-major and packs a zero-padded
+The JAX package transposes to head-major and packs a zero-padded
 super-slab before its Pallas launch.  The CUDA kernel reads the public
 layout in place and writes ``(B, Q, H*D)``, so the move here is only to
 contiguous operands (the wrapper checks the rest).  On CUDA tensors the call

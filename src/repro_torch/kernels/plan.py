@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -81,12 +81,6 @@ class MsdaSpec:
         return self.slab_dtype
 
 
-def spec_to_json(spec: MsdaSpec) -> Dict[str, Any]:
-    d = dataclasses.asdict(spec)
-    d["spatial_shapes"] = [[int(h), int(w)] for h, w in spec.spatial_shapes]
-    return d
-
-
 # dtype-policy knob (configs' ``msda.dtype_policy``) -> spec fields
 DTYPE_POLICIES: Dict[str, Tuple[str, str]] = {
     "follow": ("", "float32"),
@@ -114,7 +108,6 @@ class PlanTuning:
     slab_dtypes: Tuple[str, ...]
     # True: one fused launch over the whole pyramid per direction
     fuse_levels: bool = False
-    source: str = "heuristic"
 
 
 def _check_cuda_spec(spec: MsdaSpec) -> None:
@@ -177,7 +170,6 @@ class MsdaPlan:
     backend: str
     tuning: PlanTuning
     _exec: Callable = dataclasses.field(repr=False, compare=False)
-    tune: str = "heuristic"
 
     def __call__(self, value: torch.Tensor, sampling_locations: torch.Tensor,
                  attention_weights: torch.Tensor) -> torch.Tensor:
@@ -191,12 +183,6 @@ class MsdaPlan:
                 f"loc Q={sampling_locations.shape[1]} != spec Q={s.num_queries}")
         return self._exec(value, sampling_locations, attention_weights)
 
-    apply = __call__
-
-    @property
-    def fused(self) -> bool:
-        return bool(self.tuning.fuse_levels)
-
     def launches_per_call(self) -> Dict[str, int]:
         """Kernel launches per plan call, by direction: the fused CUDA
         forward launches once; the oracle launches none of the port's
@@ -206,9 +192,9 @@ class MsdaPlan:
     def describe(self) -> str:
         s = self.spec
         lp = self.launches_per_call()
-        fuse = "pyramid" if self.fused else "none"
+        fuse = "pyramid" if self.tuning.fuse_levels else "none"
         return (
-            f"MsdaPlan(backend={self.backend}, tune={self.tuning.source}, "
+            f"MsdaPlan(backend={self.backend}, tune=heuristic, "
             f"fuse={fuse}, train={s.train}, dtype={s.dtype}, accum={s.accum_dtype})\n"
             f"  Q={s.num_queries} H={s.num_heads} D={s.head_dim} P={s.num_points} "
             f"levels={s.num_levels} S={s.total_pixels} "
@@ -218,22 +204,6 @@ class MsdaPlan:
 
 _PLAN_CACHE: "OrderedDict[tuple, MsdaPlan]" = OrderedDict()
 _PLAN_CACHE_MAX = 128
-
-
-def configure_plan_cache(maxsize: int) -> None:
-    """Bound the in-process plan cache (evicts LRU beyond ``maxsize``)."""
-    global _PLAN_CACHE_MAX
-    _PLAN_CACHE_MAX = max(1, int(maxsize))
-    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
-        _PLAN_CACHE.popitem(last=False)
-
-
-def clear_plans() -> None:
-    _PLAN_CACHE.clear()
-
-
-def plan_cache_info() -> Dict[str, int]:
-    return {"size": len(_PLAN_CACHE), "maxsize": _PLAN_CACHE_MAX}
 
 
 def msda_plan(spec: MsdaSpec, *, backend: str = "auto",
@@ -251,7 +221,7 @@ def msda_plan(spec: MsdaSpec, *, backend: str = "auto",
     tuning = PlanTuning(slab_dtypes=(spec.resolved_slab_dtype(),) * spec.num_levels,
                         fuse_levels=backend_name == "cuda")
     plan = MsdaPlan(spec=spec, backend=backend_name, tuning=tuning,
-                    _exec=builder(spec, tuning), tune=tune)
+                    _exec=builder(spec, tuning))
     _PLAN_CACHE[key] = plan
     while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
         _PLAN_CACHE.popitem(last=False)

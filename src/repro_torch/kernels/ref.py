@@ -31,10 +31,6 @@ import torch.nn.functional as F
 Shapes = Tuple[Tuple[int, int], ...]
 
 
-def level_sizes(spatial_shapes: Shapes) -> Tuple[int, ...]:
-    return tuple(h * w for h, w in spatial_shapes)
-
-
 def _bilinear_corners(loc_x, loc_y, H, W):
     """Corner origin + fractions for grid_sample(align_corners=False)."""
     px = loc_x * W - 0.5
@@ -57,21 +53,20 @@ def _gather_2d(value_l, x, y, H, W):
 
 
 def msda_ref(value: torch.Tensor, spatial_shapes: Shapes,
-             sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
-             *, compute_dtype=torch.float32) -> torch.Tensor:
-    """Vectorised MSDA oracle. See module docstring for shapes."""
+             sampling_locations: torch.Tensor, attention_weights: torch.Tensor) -> torch.Tensor:
+    """Vectorised MSDA oracle in fp32. See module docstring for shapes."""
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
-    if S != sum(level_sizes(spatial_shapes)):
+    if S != sum(h * w for h, w in spatial_shapes):
         raise ValueError(f"value S={S} does not match {spatial_shapes}")
     if tuple(attention_weights.shape) != (B, Q, H, L, P):
         raise ValueError(f"attention_weights {tuple(attention_weights.shape)} "
                          f"!= {(B, Q, H, L, P)}")
     out_dtype = value.dtype
-    value_t = value.to(compute_dtype).permute(0, 2, 1, 3)  # (B,H,S,D)
-    loc = sampling_locations.to(compute_dtype)
-    attn = attention_weights.to(compute_dtype)
-    out = torch.zeros((B, Q, H, D), dtype=compute_dtype, device=value.device)
+    value_t = value.float().permute(0, 2, 1, 3)  # (B,H,S,D)
+    loc = sampling_locations.float()
+    attn = attention_weights.float()
+    out = torch.zeros((B, Q, H, D), dtype=torch.float32, device=value.device)
     offset = 0
     for l, (Hl, Wl) in enumerate(spatial_shapes):
         value_l = value_t[:, :, offset:offset + Hl * Wl]

@@ -16,7 +16,7 @@ Built-in backends (registered by ``repro_torch.kernels.plan``):
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict
 
 BackendBuilder = Callable  # (spec, tuning) -> executor
 
@@ -28,21 +28,16 @@ class UnknownBackendError(ValueError):
     """Raised when a plan names a backend nobody registered."""
 
 
-def register_backend(name: str, builder: BackendBuilder, *,
-                     overwrite: bool = False) -> BackendBuilder:
+def backend(name: str):
+    """Decorator registering a builder under ``name``."""
     if name in _RESERVED:
         raise ValueError(f"backend name {name!r} is reserved")
-    if name in _BACKENDS and not overwrite:
-        raise ValueError(f"backend {name!r} already registered (overwrite=True to replace)")
-    _BACKENDS[name] = builder
-    return builder
-
-
-def backend(name: str, *, overwrite: bool = False):
-    """Decorator form of :func:`register_backend`."""
+    if name in _BACKENDS:
+        raise ValueError(f"backend {name!r} already registered")
 
     def deco(builder: BackendBuilder) -> BackendBuilder:
-        return register_backend(name, builder, overwrite=overwrite)
+        _BACKENDS[name] = builder
+        return builder
 
     return deco
 
@@ -60,11 +55,6 @@ def get_backend(name: str) -> BackendBuilder:
     except KeyError:
         raise UnknownBackendError(
             f"unknown MSDA backend {name!r}; registered: {sorted(_BACKENDS)}") from None
-
-
-def list_backends() -> Tuple[str, ...]:
-    _ensure_defaults()
-    return tuple(sorted(_BACKENDS))
 
 
 def _ensure_defaults() -> None:

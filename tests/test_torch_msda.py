@@ -7,6 +7,8 @@ The CUDA kernel itself is held against its plain version on the card by
 ``chip_smoke.py`` (the card machine has no JAX, which conftest imports).
 """
 import ast
+import dataclasses
+from collections import OrderedDict
 from pathlib import Path
 
 import jax
@@ -137,7 +139,8 @@ def test_spec_fields_match_jax():
     kw = dict(spatial_shapes=((8, 8), (4, 4)), num_heads=2, head_dim=32,
               num_points=2, num_queries=80)
     j = jax_plan.spec_to_json(jax_plan.MsdaSpec(**kw))
-    t = plan.spec_to_json(plan.MsdaSpec(**kw))
+    t = dataclasses.asdict(plan.MsdaSpec(**kw))
+    t["spatial_shapes"] = [list(hw) for hw in t["spatial_shapes"]]
     assert set(j) == set(t)
     j.pop("vmem_budget"), t.pop("vmem_budget")
     assert j == t
@@ -158,15 +161,14 @@ def test_plan_launch_schedule_and_cache(backend, launches):
         p(value, loc[:, :-1], attn[:, :-1])
 
 
-def test_plan_cache_is_bounded():
-    plan.clear_plans()
-    plan.configure_plan_cache(2)
-    try:
-        for q in (3, 4, 5):
-            plan.msda_plan(plan.MsdaSpec(((4, 4),), 2, 32, 2, q), backend="ref")
-        assert plan.plan_cache_info()["size"] == 2
-    finally:
-        plan.configure_plan_cache(128)
+def test_plan_cache_is_bounded(monkeypatch):
+    monkeypatch.setattr(plan, "_PLAN_CACHE", OrderedDict())
+    monkeypatch.setattr(plan, "_PLAN_CACHE_MAX", 2)
+    specs = [plan.MsdaSpec(((4, 4),), 2, 32, 2, q) for q in (3, 4, 5)]
+    plans = [plan.msda_plan(s, backend="ref") for s in specs]
+    assert len(plan._PLAN_CACHE) == 2
+    assert plan.msda_plan(specs[2], backend="ref") is plans[2]
+    assert plan.msda_plan(specs[0], backend="ref") is not plans[0]  # evicted
 
 
 @pytest.mark.parametrize("field,value", [
