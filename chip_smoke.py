@@ -11,6 +11,7 @@ fatal on failure (no CPU fallback, nothing caught and passed over):
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the encoder (Q = 87296, B = 1 and B = 2) and decoder (Q = 300,
              B = 2) geometries, loc in [-0.1, 1.1]; fp32 FWD_TOL = 2e-5.
+             A backward through the kernel and a misaligned operand raise.
 3. slice   — full-width Deformable-DETR (6+6 layers, d = 256, 5 levels,
              sum HW = 87296) from ``init_detr(seed)`` answers requests of 2
              pyramids from the detection source; shapes, finiteness, 12
@@ -208,7 +209,7 @@ def main() -> None:
     log(f"[torch] {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build.build(["msda_fwd_fused"])
+    build.build("msda_fwd_fused")
     log(f"[build] msda_fwd_fused ready in {time.perf_counter() - t0:.1f} s; ptxas: "
         + (build.PTXAS_REPORTS.get("msda_fwd_fused") or "(library already built)"))
 
@@ -250,6 +251,22 @@ def main() -> None:
         fail("backward through the CUDA kernel returned instead of raising")
     except NotImplementedError as err:
         log(f"[kernels] backward on the card raises as it must: {err}")
+    # a contiguous view off the kernel's vector alignment must raise before
+    # any launch (a misaligned float4 load would poison the CUDA context)
+    value, loc, attn = (t.detach() for t in small)
+    for name, (v, lc) in {
+            "value": (torch.empty(value.numel() + 1, device="cuda")[1:].view(value.shape), loc),
+            "loc": (value, torch.empty(loc.numel() + 1, device="cuda")[1:].view(loc.shape)),
+    }.items():
+        before = msda_fwd.msda_fwd_fused.launches
+        try:
+            msda_fwd.msda_fwd_fused(v, lc, attn, levels)
+            fail(f"a misaligned {name} was launched instead of raising")
+        except ValueError as err:
+            if msda_fwd.msda_fwd_fused.launches != before:
+                fail(f"a misaligned {name} counted a launch")
+            log(f"[kernels] misaligned {name} raises as it must: {err}")
+    torch.cuda.synchronize()  # the context is still healthy
 
     # -- 3. the slice -----------------------------------------------------
     model = dt.init_detr(cfg, seed=SEED, device="cuda")

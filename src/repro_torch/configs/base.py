@@ -15,11 +15,11 @@ from typing import Optional, Tuple
 class MSDAConfig:
     """Multi-scale deformable attention config (the paper's op).
 
-    ``backend`` feeds the plan/execute API (``repro_torch.kernels.plan``):
-    ``"auto"`` resolves to the ``"cuda"`` kernel backend.  The TPU-side
-    knobs (``tune``, ``vmem_budget``, ``sharding``, ...) are kept so specs
-    and configs compare across packages; this slice honours the
-    inference-path subset (see ``kernels/plan.py``).
+    The fields the inference slice reads, with the JAX names and
+    defaults.  ``backend`` feeds the plan/execute API
+    (``repro_torch.kernels.plan``): ``"auto"`` resolves to the ``"cuda"``
+    kernel backend.  The JAX config's tuning, sharding, dtype-policy,
+    sparsity and level-fusion knobs arrive with the code that reads them.
     """
 
     levels: Tuple[Tuple[int, int], ...]
@@ -27,42 +27,6 @@ class MSDAConfig:
     num_heads: int = 8
     # kernel backend: 'auto' | 'cuda' | 'ref'
     backend: str = "auto"
-    save_sampled: bool = True
-    tune: str = "heuristic"
-    vmem_budget: int = 0
-    query_parallel: bool = True
-    sharding: str = "auto"
-    grad_reduce: str = "auto"
-    dtype_policy: str = "follow"
-    fuse_levels: str = "auto"
-    sparsity: str = "off"
-    sparsity_k: int = 0
-    query_order: str = "identity"
-
-    def __post_init__(self):
-        if self.dtype_policy not in ("follow", "float32", "bfloat16", "auto"):
-            raise ValueError(
-                f"unknown msda dtype_policy {self.dtype_policy!r}; one of "
-                "'follow' | 'float32' | 'bfloat16' | 'auto'")
-        if self.sharding not in ("auto", "1d", "2d"):
-            raise ValueError(
-                f"unknown msda sharding {self.sharding!r}; one of "
-                "'auto' | '1d' | '2d'")
-        if self.grad_reduce not in ("auto", "ring", "psum"):
-            raise ValueError(
-                f"unknown msda grad_reduce {self.grad_reduce!r}; one of "
-                "'auto' | 'ring' | 'psum'")
-        if self.sparsity not in ("off", "topk", "auto"):
-            raise ValueError(
-                f"unknown msda sparsity {self.sparsity!r}; one of "
-                "'off' | 'topk' | 'auto'")
-        if self.sparsity_k < 0:
-            raise ValueError(
-                f"msda sparsity_k must be >= 0, got {self.sparsity_k}")
-        if self.query_order not in ("identity", "morton", "auto"):
-            raise ValueError(
-                f"unknown msda query_order {self.query_order!r}; one of "
-                "'identity' | 'morton' | 'auto'")
 
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm", "vision")

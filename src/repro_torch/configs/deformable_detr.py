@@ -23,11 +23,6 @@ CONFIG = register(ModelConfig(
     gated_mlp=False,
     act="gelu",
     norm_type="layernorm",
-    # dtype_policy="auto" only matters under autotune, which the port does
-    # not have yet: under the heuristic the slab follows the operand dtype
-    msda=MSDAConfig(levels=PAPER_LEVELS, num_points=4, num_heads=8,
-                    backend="auto", tune="heuristic", vmem_budget=0,
-                    query_parallel=True, dtype_policy="auto",
-                    sharding="auto", grad_reduce="auto"),
+    msda=MSDAConfig(levels=PAPER_LEVELS, num_points=4, num_heads=8, backend="auto"),
     source="arXiv:2010.04159 (Deformable DETR) + paper §3 input spec",
 ))

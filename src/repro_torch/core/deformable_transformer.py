@@ -111,7 +111,7 @@ def decode_queries(params: DeformableDETR, cfg, memory: torch.Tensor):
     refs = refs[None].float().expand(B, NUM_QUERIES, 2)
     for lp in params.dec_layers:
         h = layers.apply_norm(lp.norm1, q, cfg.norm_eps)
-        q = q + attention.attention_fwd(lp.self_attn, cfg, h, causal=False, rope=False)
+        q = q + attention.attention_fwd(lp.self_attn, cfg, h)
         h2 = layers.apply_norm(lp.norm2, q, cfg.norm_eps)
         q = q + msda_mod.msda_attention(lp.msda, mc, h2, memory, refs)
         h3 = layers.apply_norm(lp.norm3, q, cfg.norm_eps)

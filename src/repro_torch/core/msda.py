@@ -65,8 +65,8 @@ def init_msda_attention(gen: Optional[torch.Generator], d_model: int, msda_cfg) 
 
 def attention_plan(msda_cfg, *, num_queries: int, head_dim: int,
                    dtype) -> plan_mod.MsdaPlan:
-    """The module's inference :class:`MsdaPlan` for one static geometry (cached)."""
-    slab_dtype, accum_dtype = plan_mod.resolve_dtype_policy(msda_cfg.dtype_policy)
+    """The module's inference :class:`MsdaPlan` for one static geometry
+    (cached).  The slab follows the operand dtype and accumulates in fp32."""
     spec = plan_mod.MsdaSpec(
         spatial_shapes=msda_cfg.levels,
         num_heads=msda_cfg.num_heads,
@@ -74,15 +74,8 @@ def attention_plan(msda_cfg, *, num_queries: int, head_dim: int,
         num_points=msda_cfg.num_points,
         num_queries=num_queries,
         dtype=plan_mod.dtype_name(dtype),
-        vmem_budget=msda_cfg.vmem_budget,
-        slab_dtype=slab_dtype,
-        accum_dtype=accum_dtype,
-        fuse_levels=msda_cfg.fuse_levels,
-        sparsity=msda_cfg.sparsity,
-        sparsity_k=msda_cfg.sparsity_k,
-        query_order=msda_cfg.query_order,
     )
-    return plan_mod.msda_plan(spec, backend=msda_cfg.backend, tune=msda_cfg.tune)
+    return plan_mod.msda_plan(spec, backend=msda_cfg.backend)
 
 
 def msda_attention(p: MSDAttention, msda_cfg, query: torch.Tensor,

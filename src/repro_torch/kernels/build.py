@@ -3,8 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/kernels/lib<name>-<digest>.so`` at the repo root
 (listed in ``.gitignore``); the digest covers the source and the flags,
-so an edited source rebuilds.  Several sources build in parallel, one
-``nvcc`` each, all started together.  Nothing here runs at import time.
+so an edited source rebuilds.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,39 +41,29 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every missing library among ``names`` in parallel."""
-    paths = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
-    if not todo:
-        return paths
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    path = library_path(name)
+    if path.exists():
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for n, p in todo.items():
-        tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.PIPE, text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        out, err = proc.communicate()
-        report = (out + err).strip()
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exited {proc.returncode}\n{report}")
-            continue
-        os.replace(tmp, todo[n])
-        PTXAS_REPORTS[n] = report
-        print(f"[build] {n}: {todo[n].name}\n{report}", flush=True)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    report = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{report}")
+    os.replace(tmp, path)
+    PTXAS_REPORTS[name] = report
+    print(f"[build] {name}: {path.name}\n{report}", flush=True)
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib

@@ -119,29 +119,46 @@ def _kernel_lib():
     return _lib
 
 
+def check_kernel_operands(value: torch.Tensor, loc: torch.Tensor, attn: torch.Tensor) -> None:
+    """Raise unless the kernel can read these operands as they lie.
+
+    Contiguous fp32, ``D % 32 == 0``, at most ``MAX_LEVELS`` levels, and
+    the kernel's vector loads aligned: value is read as float4 (its base
+    on 16 bytes; ``D % 32`` keeps every row so) and loc as float2 (8
+    bytes).  A view with a storage offset can break either; the card
+    would then fault with a misaligned address that poisons the context.
+    """
+    for name, t in (("value", value), ("loc", loc), ("attn", attn)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"msda_fwd_fused: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"msda_fwd_fused: {name} must be contiguous")
+    D, L = value.shape[3], loc.shape[3]
+    if D % 32 or L > MAX_LEVELS:
+        raise ValueError(f"msda_fwd_fused: needs D % 32 == 0 and L <= {MAX_LEVELS}; "
+                         f"got D={D}, L={L}")
+    for name, t, align in (("value", value, 16), ("loc", loc, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"msda_fwd_fused: {name} must start on a {align}-byte "
+                             f"boundary (storage offset {t.storage_offset()})")
+
+
 def msda_fwd_fused(value: torch.Tensor, loc: torch.Tensor, attn: torch.Tensor,
                    spatial_shapes: Shapes) -> torch.Tensor:
     """Fused whole-pyramid forward: one kernel launch for all levels.
 
-    CPU tensors run :func:`msda_fwd_fused_plain`.  CUDA tensors must be
-    contiguous fp32 with ``D % 32 == 0`` and at most ``MAX_LEVELS``
-    levels; anything else raises — there is no fallback on the card.
+    CPU tensors run :func:`msda_fwd_fused_plain`.  CUDA tensors must pass
+    :func:`check_kernel_operands`; anything else raises — there is no
+    fallback on the card.
     """
     _check_shapes(value, loc, attn, spatial_shapes)
     if value.device.type == "cpu":
         return msda_fwd_fused_plain(value, loc, attn, spatial_shapes)
     if value.device.type != "cuda":
         raise ValueError(f"msda_fwd_fused: unsupported device {value.device}")
-    for name, t in (("value", value), ("loc", loc), ("attn", attn)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"msda_fwd_fused: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"msda_fwd_fused: {name} must be contiguous")
+    check_kernel_operands(value, loc, attn)
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = loc.shape
-    if D % 32 or L > MAX_LEVELS:
-        raise ValueError(f"msda_fwd_fused: needs D % 32 == 0 and L <= {MAX_LEVELS}; "
-                         f"got D={D}, L={L}")
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
         return out

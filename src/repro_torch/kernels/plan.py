@@ -81,31 +81,10 @@ class MsdaSpec:
         return self.slab_dtype
 
 
-# dtype-policy knob (configs' ``msda.dtype_policy``) -> spec fields
-DTYPE_POLICIES: Dict[str, Tuple[str, str]] = {
-    "follow": ("", "float32"),
-    "float32": ("float32", "float32"),
-    "bfloat16": ("bfloat16", "float32"),
-    "auto": ("auto", "float32"),
-}
-
-
-def resolve_dtype_policy(policy: str) -> Tuple[str, str]:
-    """Map a policy name to ``(slab_dtype, accum_dtype)`` spec fields."""
-    try:
-        return DTYPE_POLICIES[policy]
-    except KeyError:
-        raise ValueError(
-            f"unknown msda dtype policy {policy!r}; one of {sorted(DTYPE_POLICIES)}"
-        ) from None
-
-
 @dataclass(frozen=True)
 class PlanTuning:
     """Resolved per-plan decisions handed to the backend builder."""
 
-    # committed slab storage dtype per level
-    slab_dtypes: Tuple[str, ...]
     # True: one fused launch over the whole pyramid per direction
     fuse_levels: bool = False
 
@@ -194,7 +173,7 @@ class MsdaPlan:
         lp = self.launches_per_call()
         fuse = "pyramid" if self.tuning.fuse_levels else "none"
         return (
-            f"MsdaPlan(backend={self.backend}, tune=heuristic, "
+            f"MsdaPlan(backend={self.backend}, "
             f"fuse={fuse}, train={s.train}, dtype={s.dtype}, accum={s.accum_dtype})\n"
             f"  Q={s.num_queries} H={s.num_heads} D={s.head_dim} P={s.num_points} "
             f"levels={s.num_levels} S={s.total_pixels} "
@@ -206,20 +185,16 @@ _PLAN_CACHE: "OrderedDict[tuple, MsdaPlan]" = OrderedDict()
 _PLAN_CACHE_MAX = 128
 
 
-def msda_plan(spec: MsdaSpec, *, backend: str = "auto",
-              tune: str = "heuristic") -> MsdaPlan:
-    """Resolve backend + tuning for ``spec``; cached per (spec, backend, tune)."""
-    if tune != "heuristic":
-        raise NotImplementedError(f"tune={tune!r}: only 'heuristic' is ported")
+def msda_plan(spec: MsdaSpec, *, backend: str = "auto") -> MsdaPlan:
+    """Resolve backend + tuning for ``spec``; cached per (spec, backend)."""
     backend_name = registry.resolve_backend(backend)
-    key = (spec, backend_name, tune)
+    key = (spec, backend_name)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _PLAN_CACHE.move_to_end(key)
         return cached
     builder = registry.get_backend(backend_name)
-    tuning = PlanTuning(slab_dtypes=(spec.resolved_slab_dtype(),) * spec.num_levels,
-                        fuse_levels=backend_name == "cuda")
+    tuning = PlanTuning(fuse_levels=backend_name == "cuda")
     plan = MsdaPlan(spec=spec, backend=backend_name, tuning=tuning,
                     _exec=builder(spec, tuning))
     _PLAN_CACHE[key] = plan

@@ -67,12 +67,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
 
 
-def attention_fwd(p: Attention, cfg, x: torch.Tensor, *, causal: bool = True,
-                  rope: bool = True) -> torch.Tensor:
-    """Self-attention block ``(B, S, d) -> (B, S, d)``.  Only the
-    ``causal=False, rope=False`` form (the DETR decoder's) is ported."""
-    if causal or rope:
-        raise NotImplementedError("attention_fwd: only causal=False, rope=False is ported")
+def attention_fwd(p: Attention, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Self-attention block ``(B, S, d) -> (B, S, d)``: the JAX
+    ``attention_fwd`` with ``causal=False, rope=False`` (the DETR decoder's)."""
     B, S, _ = x.shape
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)

@@ -119,6 +119,37 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
         msda_fwd.msda_fwd_fused(value[:, :-1], loc, attn, levels)
 
 
+def _offset_view(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` floats into
+    its storage."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("operand,offset", [("value", 1), ("value", 2), ("loc", 1)])
+def test_kernel_operands_reject_misaligned_views(operand, offset):
+    """The kernel reads value as float4 and loc as float2: a contiguous
+    view off those boundaries must be refused before any launch."""
+    ops_ = dict(zip(("value", "loc", "attn"), _t(*_inputs(10, ((4, 6), (2, 3)), Q=5))))
+    msda_fwd.check_kernel_operands(**ops_)
+    ops_[operand] = _offset_view(ops_[operand], offset)
+    assert ops_[operand].is_contiguous()
+    with pytest.raises(ValueError, match=f"{operand} must start on a"):
+        msda_fwd.check_kernel_operands(**ops_)
+
+
+def test_kernel_operands_reject_what_the_kernel_cannot_read():
+    value, loc, attn = _t(*_inputs(11, ((4, 6),), Q=5))
+    with pytest.raises(TypeError):
+        msda_fwd.check_kernel_operands(value.double(), loc, attn)
+    with pytest.raises(ValueError, match="contiguous"):
+        msda_fwd.check_kernel_operands(value, loc, attn.transpose(0, 1))
+    with pytest.raises(ValueError, match="D % 32"):
+        msda_fwd.check_kernel_operands(value[..., :16].contiguous(), loc, attn)
+
+
 def test_cpu_autograd_through_plain_matches_ref_grads():
     """On CPU tensors ops.msda_fused is the plain version, which autograd
     differentiates; its gradients agree with the oracle's."""
